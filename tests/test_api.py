@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from cse305_parallel_sequence_alignment_tpu import (
+from cse305_parallel_sequence_alignment import (
     align,
     align_pairs,
     score_pairs,
 )
-from cse305_parallel_sequence_alignment_tpu.models.oracle import oracle_align
+from cse305_parallel_sequence_alignment.models.oracle import oracle_align
 
 
 def rand_seq(rng, n):

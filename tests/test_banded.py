@@ -3,19 +3,19 @@
 import numpy as np
 import pytest
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.banded import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.banded import (
     BandedAligner,
 )
-from cse305_parallel_sequence_alignment_tpu.models.oracle import oracle_align
-from cse305_parallel_sequence_alignment_tpu.ops.banded import (
+from cse305_parallel_sequence_alignment.models.oracle import oracle_align
+from cse305_parallel_sequence_alignment.ops.banded import (
     band_check,
     banded_score,
 )
-from cse305_parallel_sequence_alignment_tpu.parallel.partition import (
+from cse305_parallel_sequence_alignment.parallel.partition import (
     score_chain,
 )
-from cse305_parallel_sequence_alignment_tpu.core import encode_seq
+from cse305_parallel_sequence_alignment.core import encode_seq
 
 
 def rand_seq(rng, n):
@@ -58,6 +58,24 @@ def test_wide_band_equals_full_dp():
         assert got.aligned_a == want.aligned_a
 
 
+@pytest.mark.parametrize("start,end", [(-1, -1), (-2, -3), (1, 2),
+                                       (3, -2)])
+def test_wide_band_boundary_types(start, end):
+    """Anchored start/end types through the banded fill and walk equal
+    the full-DP oracle when the band covers the grid."""
+    rng = np.random.default_rng(107)
+    for _ in range(3):
+        m = int(rng.integers(8, 30))
+        n = int(rng.integers(max(1, m - 6), m + 6))
+        a, b = rand_seq(rng, m), rand_seq(rng, n)
+        got = BandedAligner(w_lo=m + 2, w_hi=n + 2, start_type=start,
+                            end_type=end).align(a, b)
+        want = oracle_align(a, b, start_type=start, end_type=end,
+                            parity_swap=False)
+        assert got.score == want.score, (a, b)
+        assert got.chain == want.chain, (a, b)
+
+
 def test_narrow_band_on_similar_pairs():
     """Mutated copies: a modest band already reaches the true optimum."""
     rng = np.random.default_rng(102)
@@ -86,7 +104,7 @@ def test_narrow_band_chain_is_valid():
 
 
 def test_banded_score_batch():
-    from cse305_parallel_sequence_alignment_tpu.ops.banded import (
+    from cse305_parallel_sequence_alignment.ops.banded import (
         banded_score_batch,
     )
     rng = np.random.default_rng(105)

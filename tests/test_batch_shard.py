@@ -3,9 +3,9 @@ virtual mesh."""
 
 import numpy as np
 
-from cse305_parallel_sequence_alignment_tpu.models.batch import BatchAligner
-from cse305_parallel_sequence_alignment_tpu.models.oracle import oracle_align
-from cse305_parallel_sequence_alignment_tpu.parallel.batch_shard import (
+from cse305_parallel_sequence_alignment.models.batch import BatchAligner
+from cse305_parallel_sequence_alignment.models.oracle import oracle_align
+from cse305_parallel_sequence_alignment.parallel.batch_shard import (
     ShardedBatchAligner,
 )
 
@@ -37,17 +37,16 @@ def test_sharded_align_matches_oracle():
 
 
 def test_sharded_local_scores_match_unsharded():
-    from cse305_parallel_sequence_alignment_tpu.models.local import (
+    from cse305_parallel_sequence_alignment.models.local import (
         LocalBatchAligner,
     )
-    from cse305_parallel_sequence_alignment_tpu.parallel.batch_shard import (
+    from cse305_parallel_sequence_alignment.parallel.batch_shard import (
         ShardedLocalBatchAligner,
     )
     rng = np.random.default_rng(94)
     pairs = rand_pairs(rng, 13)
-    s1, e1, f1 = LocalBatchAligner(backend="wavefront").score_batch(pairs)
-    s2, e2, f2 = ShardedLocalBatchAligner(
-        backend="wavefront").score_batch(pairs)
+    s1, e1, f1 = LocalBatchAligner().score_batch(pairs)
+    s2, e2, f2 = ShardedLocalBatchAligner().score_batch(pairs)
     np.testing.assert_array_equal(s1, s2)
     np.testing.assert_array_equal(e1, e2)
     np.testing.assert_array_equal(f1, f2)

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.experimental import checkify
 
-from cse305_parallel_sequence_alignment_tpu.ops.device_walk import (
+from cse305_parallel_sequence_alignment.ops.device_walk import (
     _device_walk,
 )
-from cse305_parallel_sequence_alignment_tpu.ops.wavefront import (
+from cse305_parallel_sequence_alignment.ops.wavefront import (
     PAD_A,
     PAD_B,
     wavefront_dirs_batch,
@@ -62,8 +62,7 @@ def test_checkify_dirs_and_device_walk():
     err.throw()
 
     walk = checkify.checkify(
-        lambda d, i0, j0, t0: _device_walk(
-            d, i0, j0, t0, max_steps=46, pair_axis=0, layout="skew"),
+        lambda d, i0, j0, t0: _device_walk(d, i0, j0, t0, max_steps=46),
         errors=checkify.index_checks | checkify.div_checks)
     err2, ops = jax.jit(walk)(dirs, la.astype(jnp.int32),
                               lb.astype(jnp.int32),

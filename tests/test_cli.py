@@ -3,7 +3,7 @@
 import json
 
 
-from cse305_parallel_sequence_alignment_tpu.__main__ import main
+from cse305_parallel_sequence_alignment.__main__ import main
 
 
 def test_cli_align(capsys):
@@ -38,7 +38,7 @@ def test_cli_longscore(capsys):
     assert main(["longscore", "--a", "ACGTACGTAC", "--b", "ACGTACCTAC",
                  "--row-chunk", "4"]) == 0
     rec = json.loads(capsys.readouterr().out)
-    from cse305_parallel_sequence_alignment_tpu.models.oracle import (
+    from cse305_parallel_sequence_alignment.models.oracle import (
         oracle_align,
     )
     assert rec["score"] == oracle_align("ACGTACGTAC", "ACGTACCTAC").score

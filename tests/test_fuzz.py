@@ -1,7 +1,8 @@
 """Differential fuzzing: all fill engines against the serial oracle.
 
 Randomized sweeps over lengths, scoring parameters, and boundary types;
-every engine (rowscan, wavefront, Pallas-interpret, longseq) must agree
+every engine (rowscan, wavefront, the GPU kernel in interpret mode,
+longseq) must agree
 with the numpy oracle cell-for-cell at the final boundary, and the
 traceback chains must re-score to the reported value.
 """
@@ -9,22 +10,20 @@ traceback chains must re-score to the reported value.
 import jax.numpy as jnp
 import numpy as np
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.batch import BatchAligner
-from cse305_parallel_sequence_alignment_tpu.models.oracle import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.batch import BatchAligner
+from cse305_parallel_sequence_alignment.models.oracle import (
     oracle_align,
     oracle_tables,
 )
-from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-    pallas_score_batch,
-)
-from cse305_parallel_sequence_alignment_tpu.ops.rowscan import rowscan_score
-from cse305_parallel_sequence_alignment_tpu.ops.wavefront import (
+from cse305_parallel_sequence_alignment.ops.gpu_fill import gpu_fill
+from cse305_parallel_sequence_alignment.ops.rowscan import rowscan_score
+from cse305_parallel_sequence_alignment.ops.wavefront import (
     PAD_A,
     PAD_B,
     wavefront_score_batch,
 )
-from cse305_parallel_sequence_alignment_tpu.parallel.partition import (
+from cse305_parallel_sequence_alignment.parallel.partition import (
     score_chain,
 )
 
@@ -72,7 +71,7 @@ def test_fuzz_engines_agree_with_oracle():
 
 def test_fuzz_pallas_interpret_matches_wavefront():
     rng = np.random.default_rng(2027)
-    for _ in range(4):  # pallas interpret is slower; fewer cases
+    for _ in range(4):  # interpret mode is slower; fewer cases
         a, b, params, st = _case(rng)
         g, h, match, mismatch = params.astuple()
         bm, bn = len(a), len(b)
@@ -82,9 +81,11 @@ def test_fuzz_pallas_interpret_matches_wavefront():
         eb[0, : len(b)] = np.frombuffer(b.encode(), np.uint8)
         la = np.full(8, len(a), np.int32)
         lb = np.full(8, len(b), np.int32)
-        got = pallas_score_batch(ea, eb, la, lb, g=g, h=h, match=match,
-                                 mismatch=mismatch, start_type=st,
-                                 block_b=8, interpret=True)[0]
+        got = np.asarray(gpu_fill(
+            jnp.asarray(ea), jnp.asarray(eb), jnp.asarray(la),
+            jnp.asarray(lb), jnp.full((8,), st, jnp.int32), g=g, h=h,
+            match=match, mismatch=mismatch, want_dirs=False, block=8,
+            strip=4, S=2, C=8, interpret=True)[0])[0]
         T1, T2, T3 = oracle_tables(a, b, params, start_type=st)
         want = np.array([T1[-1, -1], T2[-1, -1], T3[-1, -1]], np.float32)
         np.testing.assert_array_equal(got, want, err_msg=f"{a} {b}")
@@ -120,8 +121,8 @@ def test_fuzz_default_params_byte_parity_paths():
 
 
 def test_fuzz_fused_rle_path_vs_wavefront():
-    """Randomized end-to-end sweep of the fused path (dynamic-type
-    rowcb dirs16 fill + RLE device walk + native replay) against the
+    """Randomized end-to-end sweep of the fused path (GPU kernel dirs
+    words + RLE device walk + native replay) against the
     XLA wavefront + host walk: chains, scores, and rendered rows must
     be identical under random scoring params and boundary types."""
     rng = np.random.default_rng(77)
@@ -135,7 +136,7 @@ def test_fuzz_fused_rle_path_vs_wavefront():
             pairs.append(("".join(rng.choice(list("ACGT"), m2)),
                           "".join(rng.choice(list("ACGT"), n2))))
         kw = dict(params=params, start_type=st, end_type=en)
-        got = BatchAligner(backend="pallas", **kw).align_batch(pairs)
+        got = BatchAligner(backend="kernel", **kw).align_batch(pairs)
         want = BatchAligner(backend="wavefront", **kw).align_batch(pairs)
         for g_, w_ in zip(got, want):
             assert g_.score == w_.score, (st, en)

@@ -2,7 +2,7 @@
 longseq pipeline accounting is self-consistent."""
 import numpy as np
 
-from cse305_parallel_sequence_alignment_tpu.core import LazyChain
+from cse305_parallel_sequence_alignment.core import LazyChain
 
 
 def _mk():
@@ -40,7 +40,7 @@ def test_lazychain_len_before_materialisation():
 
 
 def test_longseq_pipeline_stats():
-    from cse305_parallel_sequence_alignment_tpu.parallel.longseq import (
+    from cse305_parallel_sequence_alignment.parallel.longseq import (
         longseq_pipeline_stats,
     )
     st = longseq_pipeline_stats(8192, 8192, devices=8, row_chunk=256)

@@ -2,21 +2,22 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.local import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.local import (
     LocalBatchAligner,
 )
-from cse305_parallel_sequence_alignment_tpu.models.local_oracle import (
+from cse305_parallel_sequence_alignment.models.local_oracle import (
     LOCAL_PARAMS,
     sw_oracle_align,
     sw_oracle_best,
 )
-from cse305_parallel_sequence_alignment_tpu.ops.cigar import (
+from cse305_parallel_sequence_alignment.ops.cigar import (
     cigar_consumed,
 )
-from cse305_parallel_sequence_alignment_tpu.ops.local import sw_score_batch
-from cse305_parallel_sequence_alignment_tpu.ops.wavefront import PAD_A, PAD_B
+from cse305_parallel_sequence_alignment.ops.local import sw_score_batch
+from cse305_parallel_sequence_alignment.ops.wavefront import PAD_A, PAD_B
 
 
 def rand_seq(rng, n):
@@ -53,6 +54,23 @@ def test_sw_scores_vs_oracle():
         score, bi, bj = sw_oracle_best(sa, sb)
         assert best[k, 0] == score, (k, best[k], score)
         assert (int(best[k, 1]), int(best[k, 2])) == (bi, bj), k
+
+
+@pytest.mark.parametrize("params", [LOCAL_PARAMS,
+                                    ScoringParams(g=2.0, h=1.0, match=3.0,
+                                                  mismatch=-2.0)])
+def test_sw_ragged_batch_vs_oracle(params):
+    """Ragged pairs in one bucket: every pair's best score and end cell
+    equal the serial SW oracle's."""
+    rng = np.random.default_rng(17)
+    pairs = [(rand_seq(rng, int(rng.integers(1, 50))),
+              rand_seq(rng, int(rng.integers(1, 50)))) for _ in range(7)]
+    scores, ei, ej = LocalBatchAligner(params=params).score_batch(pairs)
+    for k, (sa, sb) in enumerate(pairs):
+        score, bi, bj = sw_oracle_best(sa, sb, params)
+        assert scores[k] == score, k
+        if score > 0:
+            assert (ei[k], ej[k]) == (bi, bj), k
 
 
 def test_sw_align_matches_oracle_chain():

@@ -1,20 +1,20 @@
 """Long-sequence column-sharded wavefront (parallel/longseq.py).
 
 Runs on the virtual 8-device CPU mesh from conftest; the same shard_map
-program runs over ICI on a TPU slice. Validated cell-exact against the
-single-device row-scan fill.
+program runs over NVLink on a multi-GPU host. Validated cell-exact
+against the single-device row-scan fill.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.ops.rowscan import rowscan_score
-from cse305_parallel_sequence_alignment_tpu.parallel.longseq import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.ops.rowscan import rowscan_score
+from cse305_parallel_sequence_alignment.parallel.longseq import (
     longseq_score,
 )
-from cse305_parallel_sequence_alignment_tpu.parallel.mesh import (
+from cse305_parallel_sequence_alignment.parallel.mesh import (
     make_seq_mesh,
 )
 
@@ -73,10 +73,10 @@ def test_longseq_fewer_devices():
 
 @pytest.mark.parametrize("shape", [(30, 40), (0, 20), (17, 100), (64, 64)])
 def test_longseq_lastrow_matches_rowscan(shape):
-    from cse305_parallel_sequence_alignment_tpu.ops.rowscan import (
+    from cse305_parallel_sequence_alignment.ops.rowscan import (
         rowscan_lastrow,
     )
-    from cse305_parallel_sequence_alignment_tpu.parallel.longseq import (
+    from cse305_parallel_sequence_alignment.parallel.longseq import (
         longseq_lastrow,
     )
     m, n = shape
@@ -88,12 +88,31 @@ def test_longseq_lastrow_matches_rowscan(shape):
     assert np.allclose(got, want)
 
 
+@pytest.mark.parametrize("start_type", [-1, -2, -3, 1, 2, 3])
+def test_longseq_lastrow_boundary_types(start_type):
+    """The partition layer's sharded capture primitive under every
+    anchored start type (its crossing searches use them all)."""
+    from cse305_parallel_sequence_alignment.ops.rowscan import (
+        rowscan_lastrow,
+    )
+    from cse305_parallel_sequence_alignment.parallel.longseq import (
+        longseq_lastrow,
+    )
+    rng = np.random.default_rng(89)
+    a, b = rand_pair(rng, 36, 52)
+    got = longseq_lastrow(a, b, ScoringParams(), start_type=start_type,
+                          mesh=make_seq_mesh(4), row_chunk=8)
+    want = np.asarray(rowscan_lastrow(jnp.asarray(a), jnp.asarray(b),
+                                      start_type=start_type))
+    np.testing.assert_array_equal(got, want)
+
+
 def test_longseq_batch_2d_mesh():
     """Batched ragged pairs over a (data=2, seq=4) mesh, per-pair exact."""
-    from cse305_parallel_sequence_alignment_tpu.parallel.longseq import (
+    from cse305_parallel_sequence_alignment.parallel.longseq import (
         longseq_score_batch,
     )
-    from cse305_parallel_sequence_alignment_tpu.parallel.mesh import (
+    from cse305_parallel_sequence_alignment.parallel.mesh import (
         make_2d_mesh,
     )
     rng = np.random.default_rng(66)
@@ -113,10 +132,10 @@ def test_longseq_batch_2d_mesh():
 def test_partition_with_sharded_fill():
     """PartitionedAligner using the column-sharded crossing search must
     reach the oracle-optimal score (the multi-chip long-pair path)."""
-    from cse305_parallel_sequence_alignment_tpu.models.oracle import (
+    from cse305_parallel_sequence_alignment.models.oracle import (
         oracle_align,
     )
-    from cse305_parallel_sequence_alignment_tpu.parallel.partition import (
+    from cse305_parallel_sequence_alignment.parallel.partition import (
         PartitionedAligner,
     )
     rng = np.random.default_rng(55)

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.batch import BatchAligner
-from cse305_parallel_sequence_alignment_tpu.models.oracle import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.batch import BatchAligner
+from cse305_parallel_sequence_alignment.models.oracle import (
     oracle_tables,
 )
-from cse305_parallel_sequence_alignment_tpu.core import end_table_choice
-from cse305_parallel_sequence_alignment_tpu.utils.matrices import (
+from cse305_parallel_sequence_alignment.core import end_table_choice
+from cse305_parallel_sequence_alignment.utils.matrices import (
     BLOSUM62,
     dna_matrix,
 )
@@ -60,10 +60,11 @@ def test_dna_matrix_helper():
     assert m.table()[0, 0] == 1.0 and m.table()[0, 1] == 0.0
 
 
-def test_fused_matrix_align_matches_wavefront():
-    """BLOSUM62 full alignments through the fused rowcb kernel path
-    (backend="pallas", interpret on CPU) == the wavefront matrix path
-    (VERDICT r3 missing #3: matrix-mode traceback at kernel rate)."""
+def test_fused_matrix_align_matches_wavefront(monkeypatch):
+    """BLOSUM62 full alignments walked on the device (the GPU path,
+    forced here) == the same fill walked on the host."""
+    from cse305_parallel_sequence_alignment.ops import select
+
     rng = np.random.default_rng(83)
     aa = "ARNDCQEGHILKMFPSTWYV"
     params = ScoringParams(g=1.0, h=10.0)
@@ -73,12 +74,11 @@ def test_fused_matrix_align_matches_wavefront():
         n = int(rng.integers(8, 40))
         pairs.append(("".join(rng.choice(list(aa), m)),
                       "".join(rng.choice(list(aa), n))))
-    fused = BatchAligner(params=params, matrix=BLOSUM62,
-                         parity_swap=False, backend="pallas")
-    plain = BatchAligner(params=params, matrix=BLOSUM62,
-                         parity_swap=False, backend="wavefront")
-    got = fused.align_batch(pairs)
-    want = plain.align_batch(pairs)
+    aligner = BatchAligner(params=params, matrix=BLOSUM62,
+                           parity_swap=False)
+    want = aligner.align_batch(pairs)
+    monkeypatch.setattr(select, "on_gpu", lambda: True)
+    got = aligner.align_batch(pairs)
     for r_g, r_w, p in zip(got, want, pairs):
         assert r_g.score == r_w.score, p
         assert list(r_g.chain) == list(r_w.chain), p
@@ -86,23 +86,23 @@ def test_fused_matrix_align_matches_wavefront():
         assert r_g.aligned_b == r_w.aligned_b, p
 
 
-def test_fused_matrix_mixed_types():
-    """Per-pair boundary types through the fused matrix program (the
-    partition layer's anchored-segment contract)."""
+def test_fused_matrix_mixed_types(monkeypatch):
+    """Per-pair boundary types through the matrix path with the device
+    walk (the partition layer's anchored-segment contract)."""
+    from cse305_parallel_sequence_alignment.ops import select
+
     rng = np.random.default_rng(89)
     aa = "ARNDCQEGHILKMFPSTWYV"
     pairs = [("".join(rng.choice(list(aa), 20)),
               "".join(rng.choice(list(aa), 24))) for _ in range(4)]
     sts = [-1, -2, 1, 3]
     ens = [-1, -3, 2, -2]
-    fused = BatchAligner(matrix=BLOSUM62, parity_swap=False,
-                         backend="pallas")
-    plain = BatchAligner(matrix=BLOSUM62, parity_swap=False,
-                         backend="wavefront")
-    got = fused.align_batch(pairs, traceback_mode="full",
-                            start_types=sts, end_types=ens)
-    want = plain.align_batch(pairs, traceback_mode="full",
-                             start_types=sts, end_types=ens)
+    aligner = BatchAligner(matrix=BLOSUM62, parity_swap=False)
+    want = aligner.align_batch(pairs, traceback_mode="full",
+                               start_types=sts, end_types=ens)
+    monkeypatch.setattr(select, "on_gpu", lambda: True)
+    got = aligner.align_batch(pairs, traceback_mode="full",
+                              start_types=sts, end_types=ens)
     for r_g, r_w in zip(got, want):
         assert r_g.score == r_w.score
         assert list(r_g.chain) == list(r_w.chain)

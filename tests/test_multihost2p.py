@@ -1,4 +1,4 @@
-"""Two-process DCN-layer test (VERDICT r2 weak 8).
+"""Two-process multi-host test.
 
 Drives parallel/multihost.py's REAL branch: two CPU-backend
 subprocesses join a localhost jax.distributed coordinator, assert the
@@ -20,7 +20,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from cse305_parallel_sequence_alignment_tpu.parallel.multihost import (
+from cse305_parallel_sequence_alignment.parallel.multihost import (
     host_shard, init_distributed, process_info)
 
 pid = int(sys.argv[1])
@@ -105,7 +105,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from cse305_parallel_sequence_alignment_tpu.parallel.multihost import (
+from cse305_parallel_sequence_alignment.parallel.multihost import (
     init_distributed)
 init_distributed(coordinator_address="127.0.0.1:1",
                  num_processes=2, process_id=1,

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from cse305_parallel_sequence_alignment_tpu.native import walker
-from cse305_parallel_sequence_alignment_tpu.models.gotoh import GotohAligner
-from cse305_parallel_sequence_alignment_tpu.models.oracle import oracle_align
+from cse305_parallel_sequence_alignment.native import walker
+from cse305_parallel_sequence_alignment.models.gotoh import GotohAligner
+from cse305_parallel_sequence_alignment.models.oracle import oracle_align
 
 pytestmark = pytest.mark.skipif(
     not walker.available(), reason="native library not built")
@@ -27,7 +27,7 @@ def test_native_walk_equals_python():
 def test_native_walk_batch_equals_python_fallback():
     """The threaded native batch walk must emit chains byte-identical to
     the per-pair Python walk, for both parity and full modes."""
-    from cse305_parallel_sequence_alignment_tpu.models.batch import (
+    from cse305_parallel_sequence_alignment.models.batch import (
         BatchAligner,
     )
     rng = np.random.default_rng(29)
@@ -72,9 +72,20 @@ def test_native_fasta_parse():
     assert seqs == ["ACGTTTAA", "GGGG"]
 
 
-def test_native_fasta_on_reference_data():
-    data = open("/root/reference/gene_sequences_test", "rb").read()
-    names, seqs = walker.fasta_parse(data)
+def test_native_fasta_on_reference_data(tmp_path):
+    """The native scanner on a FASTA file shaped like the reference
+    dataset (20 genes, 70-column bodies), written from the seeded
+    generator."""
+    from cse305_parallel_sequence_alignment.utils.synth import (
+        gene_family,
+        write_fasta,
+    )
+    names0, seqs0 = gene_family(count=20, min_len=500, max_len=3000,
+                                seed=5)
+    path = tmp_path / "genes.fa"
+    write_fasta(path, names0, seqs0)
+    names, seqs = walker.fasta_parse(path.read_bytes())
+    assert (names, seqs) == (names0, seqs0)
     assert len(names) == len(seqs) == 20
     assert len(set(seqs)) == 20  # no duplicates (pull_data.cpp:54-68)
     assert all(s and set(s) <= set("ACGTN") for s in seqs)
@@ -85,8 +96,8 @@ def test_native_replay_rle_matches_numpy():
     walks, parity and full modes, with and without offsets."""
     import numpy as np
 
-    from cse305_parallel_sequence_alignment_tpu.native import walker
-    from cse305_parallel_sequence_alignment_tpu.ops.device_walk import (
+    from cse305_parallel_sequence_alignment.native import walker
+    from cse305_parallel_sequence_alignment.ops.device_walk import (
         expand_rle_ops,
         replay_ops,
     )

@@ -8,8 +8,8 @@ A=AGGA, B=AGTGC, g=1, h=2, start=end=-1 (SURVEY.md §4.1).
 import numpy as np
 import pytest
 
-from cse305_parallel_sequence_alignment_tpu.core import NEG_INF, ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.oracle import (
+from cse305_parallel_sequence_alignment.core import NEG_INF, ScoringParams
+from cse305_parallel_sequence_alignment.models.oracle import (
     format_alignment,
     oracle_align,
     oracle_tables,

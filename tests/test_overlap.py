@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.overlap import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.overlap import (
     OVERLAP_PARAMS,
     OverlapBatchAligner,
     ov_oracle_best,
@@ -67,17 +67,15 @@ def test_overlap_other_params():
 
 
 def test_ov_pallas_outs_match_wavefront():
-    """pallas_overlap_dirs_batch outs == overlap_score_batch (value,
-    table, end cell) across ragged lengths — same end tie order."""
+    """overlap_dirs_batch outs == overlap_score_batch (value, table, end
+    cell) across ragged lengths — same end tie order."""
     import jax.numpy as jnp
 
-    from cse305_parallel_sequence_alignment_tpu.ops.overlap import (
+    from cse305_parallel_sequence_alignment.ops.overlap import (
+        overlap_dirs_batch,
         overlap_score_batch,
     )
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_overlap import (
-        pallas_overlap_dirs_batch,
-    )
-    from cse305_parallel_sequence_alignment_tpu.ops.wavefront import (
+    from cse305_parallel_sequence_alignment.ops.wavefront import (
         PAD_A,
         PAD_B,
     )
@@ -96,13 +94,16 @@ def test_ov_pallas_outs_match_wavefront():
     want = np.asarray(overlap_score_batch(
         jnp.asarray(a), jnp.asarray(b), jnp.asarray(la),
         jnp.asarray(lb)))
-    got, _ = pallas_overlap_dirs_batch(a, b, la, lb)
-    assert np.array_equal(got, want[:, :4])
+    got, _ = overlap_dirs_batch(jnp.asarray(a), jnp.asarray(b),
+                                jnp.asarray(la), jnp.asarray(lb))
+    assert np.array_equal(np.asarray(got)[:, :4], want[:, :4])
 
 
-def test_ov_pallas_align_matches_wavefront_path():
-    """backend="pallas" align_batch (row-dirs kernel + device walk) ==
-    the XLA wavefront path: chains, scores, CIGARs, spans."""
+def test_ov_pallas_align_matches_wavefront_path(monkeypatch):
+    """align_batch with the device walk (the GPU path, forced here) ==
+    the host walk: chains, scores, CIGARs, spans."""
+    from cse305_parallel_sequence_alignment.ops import select
+
     rng = np.random.default_rng(89)
     pairs = [(rand_seq(rng, int(rng.integers(5, 50))),
               rand_seq(rng, int(rng.integers(5, 50)))) for _ in range(9)]
@@ -111,10 +112,10 @@ def test_ov_pallas_align_matches_wavefront_path():
                   + rand_seq(rng, 25)))
     pairs.append(("ACGTTGCAAC" + rand_seq(rng, 20), rand_seq(rng, 33)
                   + "ACGTTGCAAC"))
-    # >127 columns: the round-5 permuted lane layout engages (nl > 128)
     pairs.append((rand_seq(rng, 70), rand_seq(rng, 280)))
-    got = OverlapBatchAligner(backend="pallas").align_batch(pairs)
-    want = OverlapBatchAligner(backend="wavefront").align_batch(pairs)
+    want = OverlapBatchAligner().align_batch(pairs)
+    monkeypatch.setattr(select, "on_gpu", lambda: True)
+    got = OverlapBatchAligner().align_batch(pairs)
     for g_, w_ in zip(got, want):
         assert g_.score == w_.score
         assert g_.chain == w_.chain

@@ -1,20 +1,26 @@
-"""Pallas kernels vs wavefront/oracle (interpret mode on CPU)."""
+"""The GPU fill kernel (ops/gpu_fill.py, Pallas through Triton, interpret
+mode on the CPU) against the XLA wavefront, the XLA row scan and the
+oracle; the device walk and the chunk pipeline that consume its words."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from cse305_parallel_sequence_alignment_tpu.models.oracle import oracle_align
-from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-    pallas_dirs_batch,
-    pallas_score_batch,
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.oracle import (
+    oracle_align,
+    oracle_tables,
 )
-from cse305_parallel_sequence_alignment_tpu.ops.traceback import (
+from cse305_parallel_sequence_alignment.ops.gpu_fill import gpu_fill
+from cse305_parallel_sequence_alignment.ops.rowscan import rowscan_score
+from cse305_parallel_sequence_alignment.ops.traceback import (
     traceback_from_dirs,
 )
-from cse305_parallel_sequence_alignment_tpu.ops.wavefront import (
+from cse305_parallel_sequence_alignment.ops.wavefront import (
     PAD_A,
     PAD_B,
+    wavefront_dirs_batch,
     wavefront_score_batch,
 )
 
@@ -37,91 +43,90 @@ def make_batch(rng, count, bm, bn, min_len=1):
     return a, b, la, lb, pairs
 
 
+def kernel(a, b, la, lb, start=-1, want_dirs=False, g=1.0, h=2.0,
+           match=1.0, mismatch=0.0, S=1, C=8, strip=4):
+    """gpu_fill in interpret mode at a small tiling (8-lane blocks)."""
+    st = jnp.full((a.shape[0],), start, jnp.int32)
+    finals, dirs = gpu_fill(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb),
+        st, g=g, h=h, match=match, mismatch=mismatch,
+        want_dirs=want_dirs, block=8, strip=strip, S=S, C=C,
+        interpret=True)
+    return np.asarray(finals), (None if dirs is None else np.asarray(dirs))
+
+
+def wavefront(a, b, la, lb, start=-1, **kw):
+    return np.asarray(wavefront_score_batch(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb),
+        start_type=start, **kw))
+
+
 @pytest.mark.parametrize("start", [-1, -2, 2])
 def test_pallas_score_matches_wavefront(start):
     rng = np.random.default_rng(11)
     a, b, la, lb, _ = make_batch(rng, 10, 14, 18)
-    got = pallas_score_batch(a, b, la, lb, start_type=start, block_b=8,
-                             interpret=True)
-    want = np.asarray(wavefront_score_batch(
-        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb),
-        start_type=start))
-    np.testing.assert_array_equal(got, want)
+    got, _ = kernel(a, b, la, lb, start=start)
+    np.testing.assert_array_equal(got, wavefront(a, b, la, lb, start))
 
 
 @pytest.mark.parametrize("start", [-1, -2, 3])
 def test_pallas_rowscan_matches_wavefront(start):
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        pallas_rowscan_score_batch,
-    )
+    """The XLA row scan (the long-pair fill) agrees with the wavefront."""
     rng = np.random.default_rng(13)
     a, b, la, lb, _ = make_batch(rng, 9, 17, 21)
-    got = pallas_rowscan_score_batch(a, b, la, lb, start_type=start,
-                                     block_b=8, interpret=True)
-    want = np.asarray(wavefront_score_batch(
-        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb),
-        start_type=start))
-    np.testing.assert_array_equal(got, want)
+    want = wavefront(a, b, la, lb, start)
+    for k in range(len(la)):
+        got = np.asarray(rowscan_score(
+            jnp.asarray(a[k, : la[k]]), jnp.asarray(b[k, : lb[k]]),
+            start_type=start))
+        np.testing.assert_array_equal(got, want[k])
 
 
 def test_pallas_rowscan_uniform_la_branch():
-    """Both kernel branches must agree: ``uniform_la`` auto-enables when
-    every len_a equals the padded width (the bucketed production case)
-    and skips the per-row capture entirely (advisor round-1 finding:
-    the default production path was untested)."""
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        pallas_rowscan_score_batch,
-    )
+    """Every pair fills the bucket (the bucketed production case): final
+    cells sit on the last row and column of the last tile."""
     rng = np.random.default_rng(17)
-    bm, bn = 16, 21
+    bm, bn = 16, 24
     a, b, la, lb, _ = make_batch(rng, 9, bm, bn)
-    la[:] = bm  # uniform: every pair's A fills the bucket width
-    for k in range(len(la)):
-        a[k, :] = np.frombuffer(
-            "".join(rng.choice(list("ACGT"), bm)).encode(), np.uint8)
-    got = pallas_rowscan_score_batch(a, b, la, lb, block_b=8,
-                                     interpret=True)
-    want = np.asarray(wavefront_score_batch(
-        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb)))
-    np.testing.assert_array_equal(got, want)
+    la[:], lb[:] = bm, bn
+    a[:] = rng.integers(65, 69, a.shape)
+    b[:] = rng.integers(65, 69, b.shape)
+    got, _ = kernel(a, b, la, lb, S=2, C=8)
+    np.testing.assert_array_equal(got, wavefront(a, b, la, lb))
 
 
 @pytest.mark.parametrize("start", [-1, -2, 3])
 def test_pallas_rowdirs_matches_skew_dirs(start):
-    """Row-layout dirs kernel: finals and every valid cell's packed byte
-    must equal the diagonal kernel's (skew layout re-indexed)."""
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        pallas_rowdirs_batch,
-    )
+    """Dirs words: finals and every valid cell's direction codes (bits
+    0-5) equal the XLA wavefront's skew-layout bytes."""
     rng = np.random.default_rng(19)
     a, b, la, lb, _ = make_batch(rng, 7, 13, 17)
-    fin_r, dirs_r = pallas_rowdirs_batch(a, b, la, lb, start_type=start,
-                                         block_b=8, interpret=True)
-    fin_s, dirs_s = pallas_dirs_batch(a, b, la, lb, start_type=start,
-                                      block_b=8, interpret=True)
-    np.testing.assert_array_equal(fin_r, fin_s)
+    fin_k, dirs_k = kernel(a, b, la, lb, start=start, want_dirs=True,
+                           S=2, C=8)
+    fin_s, dirs_s = wavefront_dirs_batch(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb),
+        start_type=start)
+    dirs_s = np.asarray(dirs_s)
+    np.testing.assert_array_equal(fin_k, np.asarray(fin_s))
     for k in range(len(la)):
         m, n = int(la[k]), int(lb[k])
         for i in range(1, m + 1):
-            got = dirs_r[i, k, 1: n + 1]
-            want = np.array([dirs_s[i + j, k, j] for j in range(1, n + 1)])
+            got = dirs_k[i, 1: n + 1, k] & 0x3F
+            want = np.array([dirs_s[k, i + j, j] for j in range(1, n + 1)])
             np.testing.assert_array_equal(got, want, err_msg=f"row {i}")
 
 
 def test_pallas_rowdirs_traceback_rect():
-    """Row-layout dirs walk host-side via the 'rect' layout."""
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        pallas_rowdirs_batch,
-    )
+    """The kernel's direction codes walk host-side (rect layout) to the
+    oracle's chains."""
     rng = np.random.default_rng(21)
     a, b, la, lb, pairs = make_batch(rng, 6, 12, 15)
-    finals, dirs = pallas_rowdirs_batch(a, b, la, lb, block_b=8,
-                                        interpret=True)
+    finals, dirs = kernel(a, b, la, lb, want_dirs=True)
     for k, (s1, s2) in enumerate(pairs):
         m, n = int(la[k]), int(lb[k])
         chain, table, score = traceback_from_dirs(
-            dirs[: m + 1, k, : n + 1], finals[k], m, n, h=2.0,
-            end_type=-1, layout="rect")
+            (dirs[: m + 1, : n + 1, k] & 0x3F).astype(np.uint8), finals[k],
+            m, n, h=2.0, end_type=-1, layout="rect")
         want = oracle_align(s1, s2, parity_swap=False)
         assert chain == want.chain, (s1, s2)
         assert score == want.score
@@ -130,21 +135,22 @@ def test_pallas_rowdirs_traceback_rect():
 def test_pallas_dirs_traceback_matches_oracle():
     rng = np.random.default_rng(12)
     a, b, la, lb, pairs = make_batch(rng, 6, 12, 15)
-    finals, dirs = pallas_dirs_batch(a, b, la, lb, block_b=8,
-                                     interpret=True)
+    finals, dirs = wavefront_dirs_batch(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb))
+    finals, dirs = np.asarray(finals), np.asarray(dirs)
     for k, (s1, s2) in enumerate(pairs):
         chain, table, score = traceback_from_dirs(
-            dirs[:, k, :], finals[k], int(la[k]), int(lb[k]), h=2.0,
+            dirs[k], finals[k], int(la[k]), int(lb[k]), h=2.0,
             end_type=-1, layout="skew")
         want = oracle_align(s1, s2, parity_swap=False)
         assert chain == want.chain, (s1, s2)
-        assert score == want.score
 
 
 def test_device_walk_matches_host_walker():
-    """backend="pallas" walks dirs on-device (interpret on CPU); chains
-    must equal the wavefront + host-walker path exactly, both modes."""
-    from cse305_parallel_sequence_alignment_tpu.models.batch import (
+    """backend="kernel" fills and walks on the device (interpret mode on
+    the CPU); chains must equal the wavefront + host-walker path
+    exactly, both modes."""
+    from cse305_parallel_sequence_alignment.models.batch import (
         BatchAligner,
     )
 
@@ -155,7 +161,7 @@ def test_device_walk_matches_host_walker():
         lb = int(rng.integers(1, 110))
         pairs.append(("".join(rng.choice(list("ACGT"), la)),
                       "".join(rng.choice(list("ACGT"), lb))))
-    dev = BatchAligner(backend="pallas")
+    dev = BatchAligner(backend="kernel")
     host = BatchAligner(backend="wavefront")
     for mode in ("parity", "full"):
         got = dev.align_batch(pairs, traceback_mode=mode)
@@ -168,7 +174,7 @@ def test_device_walk_matches_host_walker():
 
 def test_device_walk_offsets():
     """Global-coordinate offsets flow through the device walk."""
-    from cse305_parallel_sequence_alignment_tpu.models.batch import (
+    from cse305_parallel_sequence_alignment.models.batch import (
         BatchAligner,
     )
 
@@ -176,7 +182,7 @@ def test_device_walk_offsets():
     pairs = [("".join(rng.choice(list("ACGT"), 40)),
               "".join(rng.choice(list("ACGT"), 50))) for _ in range(3)]
     offs = [(100, 200), (0, 7), (55, 0)]
-    dev = BatchAligner(backend="pallas")
+    dev = BatchAligner(backend="kernel")
     host = BatchAligner(backend="wavefront")
     got = dev.align_batch(pairs, offsets=offs, traceback_mode="full")
     want = host.align_batch(pairs, offsets=offs, traceback_mode="full")
@@ -185,19 +191,19 @@ def test_device_walk_offsets():
 
 
 def test_align_batch_chunk_pipeline():
-    """dirs_budget small enough to force several fused chunks in one
+    """dirs_budget small enough to force several kernel chunks in one
     bucket: the 2-deep dispatch/collect pipeline must emit every pair's
     result identically to the unchunked run."""
-    from cse305_parallel_sequence_alignment_tpu.models.batch import (
+    from cse305_parallel_sequence_alignment.models.batch import (
         BatchAligner,
     )
 
     rng = np.random.default_rng(31)
     pairs = [("".join(rng.choice(list("ACGT"), 48)),
               "".join(rng.choice(list("ACGT"), 48))) for _ in range(7)]
-    # per_pair ~= 64 rows x 128 lanes -> budget of 3 pairs per chunk
-    dev = BatchAligner(backend="pallas", dirs_budget=3 * 64 * 128)
-    one = BatchAligner(backend="pallas")
+    # per pair 2 * 129 * 129 bytes of dirs words -> 3 pairs per chunk
+    dev = BatchAligner(backend="kernel", dirs_budget=3 * 2 * 129 * 129)
+    one = BatchAligner(backend="kernel")
     got = dev.align_batch(pairs)
     want = one.align_batch(pairs)
     assert [len({c[0] for c in r.chain}) for r in got]  # touch chains
@@ -207,179 +213,99 @@ def test_align_batch_chunk_pipeline():
         assert g_.aligned_a == w_.aligned_a and g_.aligned_b == w_.aligned_b
 
 
-def test_rowdirs_with_runs_rle_walk_equivalence():
-    """with_runs uint16 dirs: low byte == plain dirs byte, and the RLE
-    walk's expanded op stream is bit-identical to the per-step walk."""
-    import jax
-    import jax.numpy as jnp
-
-    from cse305_parallel_sequence_alignment_tpu.models.batch import (
+def _rle_vs_plain(a, b, la, lb, **fill_kw):
+    """Expanded run-length walk over the kernel's words vs the per-step
+    walk over the wavefront's skew bytes, up to each pair's edge."""
+    from cse305_parallel_sequence_alignment.models.batch import (
         _end_choice_vec,
     )
-    from cse305_parallel_sequence_alignment_tpu.ops.device_walk import (
+    from cse305_parallel_sequence_alignment.ops.device_walk import (
         _device_walk,
         _walk_core_rle,
         expand_rle_ops,
     )
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        _default_interpret,
-        _pallas_rowdirs,
-        rowscan_prep,
-    )
 
-    rng = np.random.default_rng(41)
-    B, bm, bn = 5, 70, 90
-    a = np.full((B, bm), PAD_A, np.uint8)
-    b = np.full((B, bn), PAD_B, np.uint8)
-    la = np.zeros(B, np.int32)
-    lb = np.zeros(B, np.int32)
-    for k in range(B):
-        la[k] = int(rng.integers(1, bm + 1))
-        lb[k] = int(rng.integers(1, bn + 1))
-        a[k, : la[k]] = rng.integers(65, 69, la[k])
-        b[k, : lb[k]] = rng.integers(65, 69, lb[k])
-    kw = dict(g=1.0, h=2.0, match=1.0, mismatch=0.0,
-              interpret=_default_interpret(None))
-    args, meta = rowscan_prep(a, b, la, lb, carries=17)
-    meta.pop("uniform_la", None)
-    st = np.full((args[0].shape[0], 128), -1, np.int32)
-    d16, fin16 = _pallas_rowdirs(*args[:4], st, with_runs=True, **kw,
-                                 **meta)
-    d8, fin8 = _pallas_rowdirs(*args[:4], st, with_runs=False, **kw,
-                               **meta)
-    d16, d8 = np.asarray(d16), np.asarray(d8)
-    # code bits 0-5 match the plain byte; bits 6-7 carry the after-run
-    # code since round 4 (run length widened to 8 bits at 8-15)
-    assert np.array_equal(d16 & 0x3F, d8.astype(np.uint16))
-    assert np.array_equal(np.asarray(fin16), np.asarray(fin8))
-
-    tables, _ = _end_choice_vec(np.asarray(fin16)[:B, :3], -1, 2.0)
+    fin, d16 = kernel(a, b, la, lb, want_dirs=True, **fill_kw)
+    _, d8 = wavefront_dirs_batch(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb))
+    tables, _ = _end_choice_vec(fin, -1, 2.0)
     max_steps = int(la.max() + lb.max()) + 1
     plain = np.asarray(_device_walk(
-        jnp.asarray(d8), jnp.asarray(la), jnp.asarray(lb),
-        jnp.asarray(tables), max_steps=max_steps, pair_axis=1,
-        layout="row"))
+        d8, jnp.asarray(la), jnp.asarray(lb), jnp.asarray(tables),
+        max_steps=max_steps))
     ent, used = jax.jit(
         lambda d, i, j, t: _walk_core_rle(d, i, j, t,
                                           max_steps=max_steps))(
         jnp.asarray(d16), jnp.asarray(la), jnp.asarray(lb),
         jnp.asarray(tables))
     dense = expand_rle_ops(np.asarray(ent).T, max_steps)
-    L = dense.shape[1]
-    # identical until each pair's edge; both are zero past it
-    for r in range(B):
+    for r in range(len(la)):
         stop = np.argmax(plain[r] == 0) if (plain[r] == 0).any() \
             else max_steps
         assert np.array_equal(dense[r, :stop], plain[r, :stop]), r
     assert int(used) >= 1
+    return d16
 
 
-def test_rowdirs_perm_layout_equivalence():
-    """Permuted-lane rowdirs: finals identical, dirs equal after column
-    unpermutation, and the perm-aware RLE walk emits the same entry
-    stream (round 5 — the 1.63x layout, attrib3_r5_results.jsonl)."""
-    import jax
-    import jax.numpy as jnp
+def test_rowdirs_with_runs_rle_walk_equivalence():
+    """The run-length walk's expanded op stream is identical to the
+    per-step walk until each pair's edge."""
+    rng = np.random.default_rng(41)
+    a, b, la, lb, _ = make_batch(rng, 5, 70, 90)
+    _rle_vs_plain(a, b, la, lb, S=2, C=16)
 
-    from cse305_parallel_sequence_alignment_tpu.models.batch import (
-        _end_choice_vec,
-    )
-    from cse305_parallel_sequence_alignment_tpu.ops.device_walk import (
-        _walk_core_rle,
-    )
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        _default_interpret,
-        _pallas_rowdirs,
-        _perm_maps,
-        rowscan_prep,
-    )
 
+def test_rle_walk_run_cap():
+    """Diagonal runs longer than the 8-bit run field (identical 300 bp
+    sequences) cap at 255 and continue in the next walk round."""
     rng = np.random.default_rng(43)
-    B, bm, bn = 5, 60, 200  # nl = 256 -> Tn = 2 (perm is a real perm)
-    a = np.full((B, bm), PAD_A, np.uint8)
-    b = np.full((B, bn), PAD_B, np.uint8)
-    la = np.zeros(B, np.int32)
-    lb = np.zeros(B, np.int32)
-    for k in range(B):
-        la[k] = int(rng.integers(1, bm + 1))
-        lb[k] = int(rng.integers(1, bn + 1))
-        a[k, : la[k]] = rng.integers(65, 69, la[k])
-        b[k, : lb[k]] = rng.integers(65, 69, lb[k])
-    kw = dict(g=1.0, h=2.0, match=1.0, mismatch=0.0,
-              interpret=_default_interpret(None))
-    args, meta = rowscan_prep(a, b, la, lb, carries=17)
-    argsp, metap = rowscan_prep(a, b, la, lb, carries=17, perm=True)
-    assert metap["perm"] is True
-    meta.pop("uniform_la", None)
-    metap.pop("uniform_la", None)
-    st = np.full((args[0].shape[0], 128), -1, np.int32)
-    d16, fin = _pallas_rowdirs(*args[:4], st, with_runs=True, **kw,
-                               **meta)
-    d16p, finp = _pallas_rowdirs(*argsp[:4], st, with_runs=True, **kw,
-                                 **metap)
-    assert np.array_equal(np.asarray(fin), np.asarray(finp))
-    _, pos_of_j = _perm_maps(meta["nl"])
-    assert np.array_equal(np.asarray(d16p)[:, :, pos_of_j],
-                          np.asarray(d16))
-    tables, _ = _end_choice_vec(np.asarray(fin)[:B, :3], -1, 2.0)
-    max_steps = int(la.max() + lb.max()) + 1
-    ent, _ = jax.jit(lambda d, i, j, t: _walk_core_rle(
-        d, i, j, t, max_steps=max_steps))(
-        jnp.asarray(d16), jnp.asarray(la), jnp.asarray(lb),
-        jnp.asarray(tables))
-    entp, _ = jax.jit(lambda d, i, j, t: _walk_core_rle(
-        d, i, j, t, max_steps=max_steps,
-        perm_tn=meta["nl"] // 128))(
-        jnp.asarray(d16p), jnp.asarray(la), jnp.asarray(lb),
-        jnp.asarray(tables))
-    assert np.array_equal(np.asarray(ent), np.asarray(entp))
+    s = rng.integers(65, 69, 300).astype(np.uint8)
+    a = np.stack([s, s])
+    b = np.stack([s, s])
+    b[1, 150] = 70  # a mismatch splits the second pair's run
+    la = np.full(2, 300, np.int32)
+    lb = np.full(2, 300, np.int32)
+    d16 = _rle_vs_plain(a, b, la, lb, S=8, C=64, strip=8)
+    assert int(d16[300, 300, 0]) >> 8 == 255
 
 
 @pytest.mark.parametrize("start", [-1, -2, -3, 1, 2, 3])
 def test_pallas_rowscan2_matches_rowscan(start):
-    """2-carry (H, T3) kernel is cell-identical to the 3-carry one."""
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        pallas_rowscan2_score_batch,
-        pallas_rowscan_score_batch,
-    )
+    """Every start type: the kernel (several tiles per diagonal) equals
+    the XLA row scan pair by pair."""
     rng = np.random.default_rng(23)
     a, b, la, lb, _ = make_batch(rng, 9, 19, 23)
-    got = pallas_rowscan2_score_batch(a, b, la, lb, start_type=start,
-                                      block_b=8, interpret=True)
-    want = pallas_rowscan_score_batch(a, b, la, lb, start_type=start,
-                                      block_b=8, interpret=True)
-    np.testing.assert_array_equal(got, want)
+    got, _ = kernel(a, b, la, lb, start=start, S=2, C=8)
+    for k in range(len(la)):
+        want = np.asarray(rowscan_score(
+            jnp.asarray(a[k, : la[k]]), jnp.asarray(b[k, : lb[k]]),
+            start_type=start))
+        np.testing.assert_array_equal(got[k], want)
 
 
 @pytest.mark.parametrize("g,h", [(1, 2), (2, 1), (1, 0), (3, 5)])
 def test_pallas_rowscan2_params(g, h):
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        pallas_rowscan2_score_batch,
-    )
     rng = np.random.default_rng(29)
     a, b, la, lb, _ = make_batch(rng, 8, 15, 18)
-    got = pallas_rowscan2_score_batch(a, b, la, lb, g=g, h=h, block_b=8,
-                                      interpret=True)
-    want = np.asarray(wavefront_score_batch(
-        jnp.asarray(a), jnp.asarray(b), jnp.asarray(la), jnp.asarray(lb),
-        g=g, h=h))
-    np.testing.assert_array_equal(got, want)
+    got, _ = kernel(a, b, la, lb, g=g, h=h)
+    np.testing.assert_array_equal(got, wavefront(a, b, la, lb, g=g, h=h))
 
 
 def test_pallas_rowscan2_uniform_la_branch():
-    from cse305_parallel_sequence_alignment_tpu.ops.pallas_fill import (
-        pallas_rowscan2_score_batch,
-        pallas_rowscan_score_batch,
-    )
+    """Tilings do not change results: one tile per pair, several tiles
+    per diagonal, and narrow strips agree with the oracle's tables."""
     rng = np.random.default_rng(31)
     bm, bn = 18, 22
-    a, b, la, lb, _ = make_batch(rng, 9, bm, bn)
+    a, b, la, lb, pairs = make_batch(rng, 9, bm, bn)
     la[:] = bm
     for k in range(len(la)):
-        a[k, :] = np.frombuffer(
-            "".join(rng.choice(list("ACGT"), bm)).encode(), np.uint8)
-    got = pallas_rowscan2_score_batch(a, b, la, lb, block_b=8,
-                                      interpret=True)
-    want = pallas_rowscan_score_batch(a, b, la, lb, block_b=8,
-                                      interpret=True)
-    np.testing.assert_array_equal(got, want)
+        a[k, :] = rng.integers(65, 69, bm)
+        pairs[k] = (a[k].tobytes().decode(), pairs[k][1])
+    runs = [kernel(a, b, la, lb, S=S, C=C, strip=R)[0]
+            for (S, C, R) in ((5, 24, 4), (1, 8, 4), (2, 4, 2))]
+    for got in runs[1:]:
+        np.testing.assert_array_equal(got, runs[0])
+    for k, (s1, s2) in enumerate(pairs):
+        T1, T2, T3 = oracle_tables(s1, s2, ScoringParams())
+        np.testing.assert_array_equal(
+            runs[0][k], [T1[-1, -1], T2[-1, -1], T3[-1, -1]])

@@ -8,7 +8,7 @@ pointer-jumping std::thread implementations; here both are
 
 import numpy as np
 
-from cse305_parallel_sequence_alignment_tpu.ops.prefix import (
+from cse305_parallel_sequence_alignment.ops.prefix import (
     prefix_max,
     prefix_sum,
 )

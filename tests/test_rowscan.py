@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.gotoh import GotohAligner
-from cse305_parallel_sequence_alignment_tpu.models.oracle import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.gotoh import GotohAligner
+from cse305_parallel_sequence_alignment.models.oracle import (
     oracle_align,
     oracle_tables,
 )

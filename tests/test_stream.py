@@ -3,15 +3,15 @@
 
 import numpy as np
 
-from cse305_parallel_sequence_alignment_tpu.harness.stream import (
+from cse305_parallel_sequence_alignment.harness.stream import (
     StreamRunner,
 )
-from cse305_parallel_sequence_alignment_tpu.models.batch import BatchAligner
-from cse305_parallel_sequence_alignment_tpu.models.oracle import oracle_align
-from cse305_parallel_sequence_alignment_tpu.parallel.multihost import (
+from cse305_parallel_sequence_alignment.models.batch import BatchAligner
+from cse305_parallel_sequence_alignment.models.oracle import oracle_align
+from cse305_parallel_sequence_alignment.parallel.multihost import (
     host_shard,
 )
-from cse305_parallel_sequence_alignment_tpu.utils.observability import (
+from cse305_parallel_sequence_alignment.utils.observability import (
     PhaseTimer,
     gcups,
 )

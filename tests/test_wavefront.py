@@ -4,13 +4,13 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cse305_parallel_sequence_alignment_tpu.core import ScoringParams
-from cse305_parallel_sequence_alignment_tpu.models.batch import BatchAligner
-from cse305_parallel_sequence_alignment_tpu.models.oracle import (
+from cse305_parallel_sequence_alignment.core import ScoringParams
+from cse305_parallel_sequence_alignment.models.batch import BatchAligner
+from cse305_parallel_sequence_alignment.models.oracle import (
     oracle_align,
     oracle_tables,
 )
-from cse305_parallel_sequence_alignment_tpu.ops.wavefront import (
+from cse305_parallel_sequence_alignment.ops.wavefront import (
     PAD_A,
     PAD_B,
     wavefront_score_batch,
